@@ -1,14 +1,14 @@
-# Release / CI procedure (ADVICE r4: the default quick tier alone must
+# Release / CI procedure (the default quick tier alone must
 # not be the only regression guard — the heavy tier carries the CLI,
 # committed-golden/fidelity and multihost tests).
 #
 #   make test        both tiers, the full certification run
 #   make test-quick  default tier (pyproject addopts: -m 'not heavy')
 #   make test-heavy  heavy tier only
-#   make bench       the driver's perf bench on the attached accelerator
-#   make tpu-check   compiled-kernel vs CPU-golden consistency on hardware
+#   make bench       the perf bench on the attached GPU
+#   make chip-smoke  main path, goldens and full-width check on the GPU
 
-.PHONY: test test-quick test-heavy bench tpu-check
+.PHONY: test test-quick test-heavy bench chip-smoke
 
 test: test-quick test-heavy
 
@@ -21,5 +21,5 @@ test-heavy:
 bench:
 	python bench.py
 
-tpu-check:
-	python scripts/tpu_check.py
+chip-smoke:
+	python chip_smoke.py

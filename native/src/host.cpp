@@ -1,6 +1,6 @@
 // Native host runtime for raytracer_tpu.
 //
-// The TPU compute path is JAX/XLA; the host-side runtime around it — sRGB
+// The device compute path is JAX/XLA; the host-side runtime around it — sRGB
 // encoding, crash-safe PNG export, tone-normalization statistics — is native
 // C++, filling the role the reference's Rust binary plays off the hot path
 // (reference: src/image.rs color conversion, src/main.rs:748-776 post

@@ -1,10 +1,10 @@
-"""raytracer_tpu — a TPU-native wavefront ray tracer (JAX / XLA / Pallas).
+"""raytracer_tpu — a wavefront ray tracer in JAX / XLA, run on NVIDIA GPUs.
 
 Ground-up re-design of foriequal0/homework-18-graphics-raytracer (a Rust
-Whitted + distributed ray tracer) for TPU hardware: SoA ray/scene pytrees,
-masked [rays x prims] intersection kernels, a fixed-depth wavefront bounce
-loop instead of CPU recursion, counter-based RNG, and pjit/shard_map tile
-sharding for multi-chip scaling.
+Whitted + distributed ray tracer) for accelerators: SoA ray/scene pytrees,
+masked [rays x prims] intersection sweeps and a BVH for large meshes, a
+fixed-depth wavefront bounce loop instead of CPU recursion, counter-based
+RNG, and shard_map tile sharding for multi-device scaling.
 """
 
 from raytracer_tpu.config import NORTH_STAR_CONFIG, REFERENCE_CONFIG, RenderConfig

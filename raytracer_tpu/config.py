@@ -31,49 +31,42 @@ class RenderConfig:
     # Tone normalization percentile (src/main.rs:754 uses 0.99).
     percentile: float = 0.99
 
-    # --- TPU execution knobs (no reference equivalent) ---
+    # --- Execution knobs (no reference equivalent) ---
     # Rays per device tile; the image is rendered in tiles of this many
     # pixels so wavefront buffers stay bounded.
     tile_rays: int = 1 << 16
     # Wavefront pool capacity factor: the bounce-ray pool holds
     # capacity_factor * tile_rays slots (rounded up to 128).  2.0 is
     # exact by construction (each live ray emits at most 2 children);
-    # 1.5 drops ~0.05% of bounce rays on the demo scene — overflow is
-    # counted in TraceResult.dropped, never silent.
+    # overflow is counted in TraceResult.dropped, never silent.
     capacity_factor: float = 2.0
     # Pool width for deep bounce levels (level >= 2), as a multiple of the
     # primary count.  Live rays decay fast (demo scene: 0.60n entering
     # level 2, 0.30n at level 5), so deep levels run in a narrower pool.
     # Compaction moves whole groups of `compact_group` rays (ops/trace.py
     # _compact), so the pool also holds each kept group's dead lanes —
-    # capacities are sized for that occupancy, not just the live count;
-    # overflow is counted in TraceResult.dropped, never silent.
-    # (measured on the demo scene: live candidates entering level 2 are
-    # ~0.8n mean / ~1.2n worst tile; 1.25 drops rays, 1.375 + the fixed
-    # slack below holds dropped=0 while cutting ~20 ms off the frame vs
-    # 2.0.)
+    # capacities are sized for that occupancy, not just the live count
+    # (demo scene: live candidates entering level 2 are ~0.8n mean /
+    # ~1.2n worst tile; 1.25 drops rays, 1.375 + the fixed slack holds
+    # dropped=0); overflow is counted in TraceResult.dropped, never silent.
     deep_capacity: float = 1.375
     deep_slack: int = 2048
     # Pool width for tail bounce levels (level >= 3): live rays are at
     # most ~0.45n entering level 3 on the demo scene.  The pool also holds
     # zombie lanes (alive=False, pending radiance undelivered —
-    # ops/trace.py Pool) which are compute-free (dead-tile skipped) yet
-    # occupy capacity; their pressure is mostly a small-frame effect, so
-    # trace_whitted adds a fixed `tail_slack` on top of the factor rather
-    # than widening large frames.  Same counted-overflow contract.
-    # (r5: 1.375/2048 -> 1.25/4096 measured dropped=0 on every preset and
-    # bench scene; narrower tail = smaller level kernels + final delivery
-    # scatter, part of the +3% strict-step win with compact_group=32.)
+    # ops/trace.py Pool) which are compute-free yet occupy capacity; their
+    # pressure is mostly a small-frame effect, so trace_whitted adds a
+    # fixed `tail_slack` on top of the factor rather than widening large
+    # frames.  1.25/4096 holds dropped=0 on every preset and bench scene.
     tail_capacity: float = 1.25
     tail_slack: int = 4096
     # Rays move through compaction in groups of this many (one scatter row
-    # per group; TPU scatters pay ~8 ns per row, so coarser groups make
-    # compaction ~group-times cheaper at some pool-occupancy cost).
-    # 0 = auto by tile size (ops/trace.py:_group): 32 for full bench-size
-    # tiles (r5 chip A/B at 1024^2 depth 5: +3.2% on the strict step,
-    # dropped=0), 8 for small tiles where live lanes are sparse and
-    # 32-wide groups overflow the pools (measured: 260 dropped at 64x48).
-    compact_group: int = 0
+    # per group, so coarser groups make fewer, wider scatter rows at some
+    # pool-occupancy cost).  32-wide groups overflow the pools: 260 rays
+    # dropped at 64x48, and 14,102 over three glass-heavy tiles of the
+    # 1280x960 reference frame (the CPU and the H100 alike); 8 holds
+    # dropped=0 on both.
+    compact_group: int = 8
     # f32 everywhere (geometry needs it); kept as a knob for experiments.
     dtype: str = "float32"
 

@@ -1,6 +1,6 @@
 """Batched pinhole / thin-lens camera.
 
-TPU-native Camera::shoot / shoot_focus (src/main.rs:84-127): one call maps
+Batched Camera::shoot / shoot_focus (src/main.rs:84-127): one call maps
 a whole clip-coordinate batch to a primary-ray batch.  The clip convention
 matches the reference driver (src/main.rs:1094-1095): clip_y = (H/2 - y)/H,
 clip_x = (x - W/2)/H — aspect handled by dividing both by height.

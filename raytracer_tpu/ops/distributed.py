@@ -1,6 +1,6 @@
 """Distributed (Monte-Carlo) tracer — DoF + stochastic scatter pass.
 
-TPU-native re-design of World::distributed_ray_trace (src/main.rs:521-614).
+Re-design of World::distributed_ray_trace (src/main.rs:521-614).
 The reference recursion picks ONE branch per bounce by Russian roulette and
 combines results as ret = A + B * ret_child with per-branch (A, B):
 
@@ -34,7 +34,6 @@ import numpy as np
 from raytracer_tpu.config import RenderConfig
 from raytracer_tpu.ops import materials as mat_ops
 from raytracer_tpu.ops.intersect import cast
-from raytracer_tpu.ops.kernel_common import kernel_textures_ok
 from raytracer_tpu.ops.shade import get_shade
 from raytracer_tpu.ops.trace import refract_march
 from raytracer_tpu.scene.types import (
@@ -90,9 +89,9 @@ def trace_distributed(
     """
     n = ray_o.shape[0]
 
-    # Pre-draw the 3 per-bounce uniforms with the SAME keys the in-loop
-    # version used (fold_in per step, split 3): the fused kernel and the
-    # jnp path consume identical randomness, so they match lane-for-lane.
+    # Pre-draw the 3 per-bounce uniforms: fold_in per step, split 3.
+    # Threefry draws are counter-based, so every backend walks the same
+    # random decisions for the same key.
     draws = []
     for step in range(cfg.depth):
         kstep = jax.random.fold_in(key, step)
@@ -105,30 +104,6 @@ def trace_distributed(
         ]))
     unifs = (jnp.stack(draws) if draws
              else jnp.zeros((0, 3, n), ray_o.dtype))
-
-    from raytracer_tpu.ops.intersect import _pallas_choice
-
-    interp = _pallas_choice()
-    if (interp is not None
-            and (scene.bvh_node_min is None or scene.blk_perm is not None)
-            and scene.n_prim > 0 and kernel_textures_ok(textures)):
-        from raytracer_tpu.ops import mc_binned, mc_pallas
-
-        # Large blocked meshes: scattered bounce rays defeat the chunk
-        # gating inside the whole-walk mega-kernel, so use the binned
-        # per-bounce path (sort lanes by origin cell x direction octant
-        # between bounces) to restore per-tile coherence.  Small scenes
-        # keep the mega-kernel: one dispatch, no sort overhead.
-        use_binned = (scene.blk_perm is not None
-                      and scene.n_tri >= mc_binned.BINNED_MIN_TRIS)
-        tracer = mc_binned.trace if use_binned else mc_pallas.trace
-        photon_raw, casts = tracer(
-            scene, textures, ray_o, ray_d, unifs, cfg.depth,
-            cfg.max_refract_distance, cfg.max_tir_retries, interpret=interp,
-        )
-        ok = jnp.all(vec.is_normal_f32(photon_raw), axis=-1)
-        photon = jnp.where(ok[:, None], photon_raw, 0.0)
-        return MCResult(photon=photon, casts=casts, filtered=jnp.sum(~ok))
 
     casts = jnp.zeros((), jnp.int32)
 

@@ -1,14 +1,18 @@
 """Vectorized nearest-hit intersector.
 
-TPU-native re-design of World::cast (reference: src/main.rs:180-326).  The
+Re-design of World::cast (reference: src/main.rs:180-326).  The
 reference scans primitives per ray on the CPU call stack; here a whole ray
 batch is tested against the whole primitive table at once as masked [N, P]
-lane math, the per-ray dot products against all triangle planes are batched
-matmuls ([N,3] x [3,T] -> MXU), and the nearest hit is a masked reduction.
+elementwise math, and the nearest hit is a masked reduction.  The winner's
+attributes are gathered from the per-primitive tables.
 
-Attribute reconstruction avoids TPU gathers: the winner is turned into a
-one-hot [N, P] mask and every per-primitive table lookup becomes a
-[N, P] x [P, k] matmul (exact — the one-hot has a single lane set).
+Every geometry product runs at Precision.HIGHEST: at the default
+precision a GPU may evaluate a float32 matmul in TF32 (about 10 mantissa
+bits), which moves hit distances and normals far more than reordering
+does.  The plane products stay [N,3] x [3,T] matmuls: the plane test of a
+ray leaving a surface against that surface's coplanar neighbour is
+ill-conditioned, and the matmul's accumulation order is the one the
+committed oracle goldens agree with.
 
 Three entry points by decreasing work:
   * cast(..., attrs="full") — everything (normal, uv, obj);
@@ -40,8 +44,6 @@ Semantic parity notes (all from src/main.rs):
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
@@ -54,27 +56,13 @@ from raytracer_tpu.scene.types import (
 )
 
 _INF = jnp.inf
-
-# Pallas dispatch: "auto" (kernel on TPU backends, jnp elsewhere),
-# "1" force-compiled, "interpret" force interpreter (CPU testing), "0" off.
-_PALLAS_MODE = os.environ.get("RAYTPU_PALLAS", "auto")
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def set_pallas_mode(mode: str) -> None:
-    global _PALLAS_MODE
-    assert mode in ("auto", "0", "1", "interpret")
-    _PALLAS_MODE = mode
-
-
-def _pallas_choice():
-    """None (use jnp) or interpret-flag for the Pallas kernels."""
-    if _PALLAS_MODE == "0":
-        return None
-    if _PALLAS_MODE == "1":
-        return False
-    if _PALLAS_MODE == "interpret":
-        return True
-    return False if jax.default_backend() == "tpu" else None
+def _dots(a, b):
+    """Every row pair's dot product: [N, 3] x [T, 3] -> [N, T], at full
+    float32 (never TF32)."""
+    return jnp.matmul(a, b.T, precision=_HIGHEST)
 
 
 def _exclusion_mask(excl_prim, excl_face, prim_ids, backface):
@@ -102,22 +90,21 @@ def _tri_candidates(scene: Scene, rays: Rays, active):
     """
     T = scene.n_tri
     face = rays.face[:, None]
-    fnT = scene.tri_fn.T  # [3, T]
-    no_d = rays.d @ fnT  # MXU
+    no_d = _dots(rays.d, scene.tri_fn)
     backface = no_d > 0.0
     cull = (backface & (face == FACE_FRONT)) | ((~backface) & (face == FACE_BACK))
     excl = _exclusion_mask(
         rays.excl_prim, rays.excl_face, jnp.arange(T, dtype=jnp.int32), backface
     )
-    o_fn = rays.o @ fnT  # MXU
+    o_fn = _dots(rays.o, scene.tri_fn)
     t = (scene.tri_d[None, :] - o_fn) / no_d
     # Signed-area inside test, affine in the hit point p = o + t d:
-    #   area_e = g_e.o + h_e + t * (g_e.d)   (three [N,3]x[3,T] matmuls)
+    #   area_e = g_e.o + h_e + t * (g_e.d)
     areas = []
     inside = True
     for e in range(3):
-        GeT = scene.tri_g[:, e, :].T  # [3, T]
-        a = rays.o @ GeT + scene.tri_h[:, e][None, :] + t * (rays.d @ GeT)
+        g_e = scene.tri_g[:, e, :]  # [T, 3]
+        a = _dots(rays.o, g_e) + scene.tri_h[:, e][None, :] + t * _dots(rays.d, g_e)
         areas.append(a)
         inside = inside & (a >= 0.0)
     valid = (
@@ -165,14 +152,6 @@ def cast_any_hit(scene: Scene, rays: Rays, active=None, limit=None):
         lim = jnp.inf if limit is None else limit
         return hit.valid & (hit.t < lim)
 
-    interp = _pallas_choice()
-    if interp is not None and scene.n_prim > 0:
-        from raytracer_tpu.ops import intersect_pallas
-
-        return intersect_pallas.any_hit(
-            scene, rays, active=active, limit=limit, interpret=interp
-        )
-
     lim = _INF if limit is None else limit[:, None]
     blocked = jnp.zeros((n,), bool)
     if scene.n_tri > 0:
@@ -199,8 +178,7 @@ def _empty_hits(n, dtype):
 
 
 def _cast_bvh(scene: Scene, rays: Rays, active, attrs: str) -> Hits:
-    """Large-scene path: BVH for triangles, dense sweep for spheres,
-    gather-based winner reconstruction (one-hot does not scale to big T)."""
+    """Large-scene path: BVH for triangles, dense sweep for spheres."""
     from raytracer_tpu.ops.intersect_bvh import tri_nearest_bvh
 
     n = rays.o.shape[0]
@@ -233,11 +211,13 @@ def _cast_bvh(scene: Scene, rays: Rays, active, attrs: str) -> Hits:
     ti = jnp.clip(jnp.where(use_sph, 0, i_tri), 0, max(T - 1, 0))
     g = scene.tri_g[ti]  # [N, 3, 3]
     h = scene.tri_h[ti]
-    area = jnp.einsum("nej,nj->ne", g, pos) + h
+    area = jnp.einsum("nej,nj->ne", g, pos, precision=_HIGHEST) + h
     bary = area / scene.tri_area2[ti][:, None]
-    n_tri_i = jnp.einsum("ne,nej->nj", bary, scene.tri_n[ti])
+    n_tri_i = jnp.einsum("ne,nej->nj", bary, scene.tri_n[ti],
+                         precision=_HIGHEST)
     n_tri_i = jnp.where(backface[:, None], -n_tri_i, n_tri_i)
-    uv_tri = jnp.einsum("ne,nek->nk", bary, scene.tri_uv[ti])
+    uv_tri = jnp.einsum("ne,nek->nk", bary, scene.tri_uv[ti],
+                        precision=_HIGHEST)
 
     normal = n_tri_i
     uv = uv_tri
@@ -284,48 +264,33 @@ def cast(scene: Scene, rays: Rays, active=None, attrs: str = "full") -> Hits:
     if scene.bvh_node_min is not None:
         return _cast_bvh(scene, rays, active, attrs)
 
-    interp = _pallas_choice()
-    if interp is not None:
-        from raytracer_tpu.ops import intersect_pallas
+    t_parts = []
+    back_parts = []
+    if T > 0:
+        t_tri, back_tri, _ = _tri_candidates(scene, rays, active)
+        t_parts.append(t_tri)
+        back_parts.append(back_tri)
+    if S > 0:
+        t_sph, back_sph = _sph_candidates(scene, rays, active)
+        t_parts.append(t_sph)
+        back_parts.append(back_sph)
 
-        t_min, win_idx, backface, valid_hit = intersect_pallas.nearest_hit(
-            scene, rays, active=active, interpret=interp
-        )
-        hit_any = valid_hit
-        win_idx = jnp.where(valid_hit, win_idx, 0)
-    else:
-        t_parts = []
-        back_parts = []
-        if T > 0:
-            t_tri, back_tri, _ = _tri_candidates(scene, rays, active)
-            t_parts.append(t_tri)
-            back_parts.append(back_tri)
-        if S > 0:
-            t_sph, back_sph = _sph_candidates(scene, rays, active)
-            t_parts.append(t_sph)
-            back_parts.append(back_sph)
+    t_all = jnp.concatenate(t_parts, axis=1) if len(t_parts) > 1 else t_parts[0]
+    back_all = (
+        jnp.concatenate(back_parts, axis=1)
+        if len(back_parts) > 1
+        else back_parts[0]
+    )
 
-        t_all = jnp.concatenate(t_parts, axis=1) if len(t_parts) > 1 else t_parts[0]
-        back_all = (
-            jnp.concatenate(back_parts, axis=1)
-            if len(back_parts) > 1
-            else back_parts[0]
-        )
-
-        t_min = jnp.min(t_all, axis=1)
-        hit_any = jnp.isfinite(t_min)
-        # Last index among the minima: reference updates nearest on t <= the
-        # current best so later primitives win exact ties
-        # (src/main.rs:229-233, 298-302).
-        ids = jnp.arange(P, dtype=jnp.int32)[None, :]
-        win_idx = jnp.max(jnp.where(t_all == t_min[:, None], ids, -1), axis=1)
-        onehot_b = ids == jnp.maximum(win_idx, 0)[:, None]
-        backface = jnp.sum(jnp.where(onehot_b, back_all, False), axis=1) > 0
-
-    # Exact one-hot of the winner: all table lookups become [N,P] matmuls
-    # (TPU gathers are slow; one-hot contractions ride the MXU).
+    t_min = jnp.min(t_all, axis=1)
+    hit_any = jnp.isfinite(t_min)
+    # Last index among the minima: reference updates nearest on t <= the
+    # current best so later primitives win exact ties
+    # (src/main.rs:229-233, 298-302).
     ids = jnp.arange(P, dtype=jnp.int32)[None, :]
-    onehot = (ids == win_idx[:, None]).astype(rays.o.dtype)  # [N, P]
+    win_idx = jnp.max(jnp.where(t_all == t_min[:, None], ids, -1), axis=1)
+    win_idx = jnp.maximum(win_idx, 0)  # misses: any row, masked below
+    backface = jnp.take_along_axis(back_all, win_idx[:, None], axis=1)[:, 0]
 
     pos = rays.o + t_min[:, None] * rays.d
 
@@ -334,27 +299,21 @@ def cast(scene: Scene, rays: Rays, active=None, attrs: str = "full") -> Hits:
     uv = jnp.zeros((n, 2), rays.o.dtype)
 
     if T > 0:
-        oh_t = onehot[:, :T]
+        ti = jnp.minimum(win_idx, T - 1)
         # Barycentric areas recomputed at the winner from the hit point:
         # area_e = g_e . p + h_e (same affine form the reference divides by
         # area2, main.rs:235-236).
-        area2 = oh_t @ scene.tri_area2  # [N]
-        n_interp = 0.0
-        uv_interp = 0.0
-        for e in range(3):
-            g_e = oh_t @ scene.tri_g[:, e, :]  # [N, 3]
-            h_e = oh_t @ scene.tri_h[:, e]  # [N]
-            bary_e = (jnp.sum(g_e * pos, axis=1) + h_e) / area2
-            n_interp = n_interp + bary_e[:, None] * (oh_t @ scene.tri_n[:, e, :])
-            uv_interp = uv_interp + bary_e[:, None] * (oh_t @ scene.tri_uv[:, e, :])
+        area = jnp.sum(scene.tri_g[ti] * pos[:, None, :], axis=-1) + scene.tri_h[ti]
+        bary = area / scene.tri_area2[ti][:, None]  # [N, 3]
+        n_interp = jnp.sum(bary[:, :, None] * scene.tri_n[ti], axis=1)
         n_tri = jnp.where(backface[:, None], -n_interp, n_interp)
         normal = jnp.where(is_tri[:, None], n_tri, normal)
         if attrs == "full":
+            uv_interp = jnp.sum(bary[:, :, None] * scene.tri_uv[ti], axis=1)
             uv = jnp.where(is_tri[:, None], uv_interp, uv)
 
     if S > 0:
-        oh_s = onehot[:, T:]
-        c = oh_s @ scene.sph_c  # [N, 3]
+        c = scene.sph_c[jnp.clip(win_idx - T, 0, S - 1)]  # [N, 3]
         n_raw = pos - c
         n_unit = n_raw / jnp.sqrt(jnp.sum(n_raw * n_raw, axis=-1, keepdims=True))
         n_sph = jnp.where(backface[:, None], -n_unit, n_unit)
@@ -368,8 +327,7 @@ def cast(scene: Scene, rays: Rays, active=None, attrs: str = "full") -> Hits:
 
     valid = active & hit_any
     if attrs == "full":
-        obj_f = onehot @ scene.prim_obj.astype(rays.o.dtype)
-        obj = jnp.where(valid, jnp.round(obj_f).astype(jnp.int32), 0)
+        obj = jnp.where(valid, scene.prim_obj[win_idx], 0)
     else:
         obj = jnp.zeros((n,), jnp.int32)
 

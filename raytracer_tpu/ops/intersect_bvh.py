@@ -1,13 +1,12 @@
 """BVH traversal path for large triangle meshes.
 
-The dense [rays x prims] sweep (ops/intersect.py, ops/intersect_pallas.py)
-is the right TPU strategy for reference-scale scenes (tens of primitives in
-VMEM, every lane busy).  Past a few hundred triangles it is O(T) per ray,
-so large scenes traverse a host-built BVH (scene/bvh.py) instead: a masked
-per-ray stack loop under lax.while_loop — every ray pops its own node,
-inner nodes push children, leaves run the exact reference triangle test on
-gathered rows.  Winner attributes are gathered (not one-hot contracted —
-one-hot does not scale to large T).
+The dense [rays x prims] sweep (ops/intersect.py) suits reference-scale
+scenes (tens of primitives, every lane busy).  Past a few hundred
+triangles it is O(T) per ray, so large scenes traverse a host-built BVH
+(scene/bvh.py) instead: a masked per-ray stack loop under lax.while_loop —
+every ray pops its own node, inner nodes push children, leaves run the
+exact reference triangle test on gathered rows.  The loop runs until the
+last ray of the batch empties its stack.
 
 Semantics match World::cast exactly, including the tie-break: the
 reference scans triangles in index order updating on t <= best, so equal-t

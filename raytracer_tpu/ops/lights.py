@@ -1,6 +1,6 @@
 """Vectorized light evaluation.
 
-TPU-native form of ApproximateIntoDirectional (src/lights.rs:44-93): every
+Batched form of ApproximateIntoDirectional (src/lights.rs:44-93): every
 light type collapses to a per-shading-point directional sample {direction,
 color, validity}, evaluated for all (point, light) pairs at once.  Note the
 reference's 1/d (not 1/d^2) distance attenuation for spot and point lights

@@ -1,6 +1,6 @@
 """Vectorized material system.
 
-TPU-native re-design of the reference's Material trait (src/materials.rs).
+Re-design of the reference's Material trait (src/materials.rs).
 The reference point-evaluates trait objects (`approx(at) -> ColorMaterial`,
 materials.rs:33-37/85-103); here evaluation gathers the per-object material
 table and then applies every procedural texture branchlessly, selecting by
@@ -51,13 +51,9 @@ def eval_material(scene: Scene, textures, obj, uv) -> MatSample:
     """Gather + texture-evaluate materials for a hit batch.
 
     `textures` is the static texture tuple (scene/textures.py); texture id 0
-    keeps the table's constant diffuse/normal.
-
-    The material table is tiny (O objects), so all lookups ride ONE one-hot
-    [N, O] x [O, 13] contraction — TPU row gathers cost ~0.2 ms per field
-    per 128k batch, the fused matmul is noise.
+    keeps the table's constant diffuse/normal.  All fields are packed into
+    one [O, 14] table so a hit batch pays one row gather.
     """
-    n_obj = scene.n_obj
     table = jnp.concatenate(
         [
             scene.mat_diffuse,  # 0:3
@@ -71,14 +67,11 @@ def eval_material(scene: Scene, textures, obj, uv) -> MatSample:
         ],
         axis=1,
     )  # [O, 14]
-    onehot = (
-        obj[:, None] == jnp.arange(n_obj, dtype=jnp.int32)[None, :]
-    ).astype(table.dtype)
-    m = onehot @ table  # [N, 14]
+    m = table[obj]  # [N, 14]
 
     diffuse = m[:, 0:3]
     normal = m[:, 11:14]
-    tex_id = onehot @ scene.mat_tex.astype(table.dtype)  # exact small ints
+    tex_id = scene.mat_tex[obj]
     for k in range(1, len(textures)):
         sel = (tex_id == k)[:, None]
         diffuse = jnp.where(sel, textures[k].diffuse(uv), diffuse)

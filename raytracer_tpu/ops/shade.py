@@ -1,15 +1,10 @@
 """Direct lighting with batched shadow rays.
 
-TPU-native World::get_shade (src/main.rs:407-464): bump-map the normal,
-approximate each light to a directional sample, test occlusion (the
-reference's nearest-hit-vs-light-origin check is equivalent to an any-hit
-predicate bounded by the light distance, src/main.rs:435-448), then
+Batched World::get_shade (src/main.rs:407-464): bump-map the normal,
+approximate each light to a directional sample, test occlusion per light
+(the reference's nearest-hit-vs-light-origin check is equivalent to an
+any-hit predicate bounded by the light distance, src/main.rs:435-448), then
 Lambert + Phong blended by shiness (450-462).
-
-On TPU all lights' shadow tests run in ONE fused Pallas launch
-(intersect_pallas.shadow_any_hit) — shadow rays share their origin, so the
-origin-dependent sweep terms are computed once.  Elsewhere the per-light
-cast_any_hit loop is used (CPU tests, BVH scenes).
 """
 
 from __future__ import annotations
@@ -17,7 +12,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from raytracer_tpu.ops import materials as mat_ops
-from raytracer_tpu.ops.intersect import _pallas_choice, cast_any_hit
+from raytracer_tpu.ops.intersect import cast_any_hit
 from raytracer_tpu.ops.lights import approximate_directional
 from raytracer_tpu.scene.types import FACE_BACK, Hits, Rays, Scene
 from raytracer_tpu.utils import vec
@@ -63,30 +58,19 @@ def get_shade(
         limits.append(limit)
         cosines.append(cosine)
 
-    interp = _pallas_choice()
-    if L > 0 and interp is not None and scene.bvh_node_min is None and scene.n_prim > 0:
-        from raytracer_tpu.ops import intersect_pallas
-
-        dirs = jnp.stack([-lights.direction[:, li] for li in range(L)])  # [L,N,3]
-        blocked_all = intersect_pallas.shadow_any_hit(
-            scene, pos, dirs, prim,
-            jnp.stack(limits), jnp.stack(considers), interpret=interp,
+    blocked_list = []
+    for li in range(L):
+        shadow_rays = Rays(
+            o=pos,
+            d=-lights.direction[:, li],
+            face=jnp.full((n,), FACE_BACK, jnp.int32),
+            excl_prim=prim,
+            excl_face=jnp.full((n,), FACE_BACK, jnp.int32),
         )
-        blocked_list = [blocked_all[li] for li in range(L)]
-    else:
-        blocked_list = []
-        for li in range(L):
-            shadow_rays = Rays(
-                o=pos,
-                d=-lights.direction[:, li],
-                face=jnp.full((n,), FACE_BACK, jnp.int32),
-                excl_prim=prim,
-                excl_face=jnp.full((n,), FACE_BACK, jnp.int32),
-            )
-            blocked_list.append(
-                cast_any_hit(scene, shadow_rays, active=considers[li],
-                             limit=limits[li])
-            )
+        blocked_list.append(
+            cast_any_hit(scene, shadow_rays, active=considers[li],
+                         limit=limits[li])
+        )
 
     total = jnp.zeros((n, 3), pos.dtype)
     for li in range(L):

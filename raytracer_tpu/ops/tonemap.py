@@ -1,6 +1,6 @@
 """Percentile tone normalization.
 
-TPU-native post_process (src/main.rs:748-762): collect per-pixel luma,
+Batched post_process (src/main.rs:748-762): collect per-pixel luma,
 drop values failing Rust's f32::is_normal(), sort ascending, take the value
 at index floor(0.99 * count), and divide the whole buffer by it when it
 exceeds f32 EPSILON.  The reference runs this on the *accumulated* buffer

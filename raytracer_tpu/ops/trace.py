@@ -1,6 +1,6 @@
 """Wavefront Whitted tracer.
 
-TPU-native re-design of World::ray_trace (src/main.rs:466-519) and
+Re-design of World::ray_trace (src/main.rs:466-519) and
 World::get_refract (343-405).  The reference's CPU call-stack recursion
 (shade + reflect-child + refract-child per hit, depth 5) flattens into a
 fixed-depth iterative *level loop* over a bounded ray pool:
@@ -98,27 +98,9 @@ def refract_march(
     (Refraction::Infinite) and still-trapped rays both yield escaped=False,
     matching both call sites treating them as black (508-511, 605-611).
 
-    On TPU backends the whole march runs inside one Pallas kernel
-    (ops/march_pallas.py) with per-tile early exit; this XLA while-loop
-    version is the oracle/fallback path.
+    The march runs as one batch-wide while_loop: it iterates until the
+    last lane has escaped, died or spent its retry or distance budget.
     """
-    from raytracer_tpu.ops.intersect import _pallas_choice
-
-    interp = _pallas_choice()
-    if interp is not None and scene.bvh_node_min is None and scene.n_prim > 0:
-        from raytracer_tpu.ops import march_pallas
-
-        escaped, travel, esc_o, esc_d, esc_prim, casts = march_pallas.march(
-            scene, pos, normal, ray_d, prim, k, want,
-            max_distance=cfg.max_refract_distance,
-            max_retries=cfg.max_tir_retries,
-            interpret=interp,
-        )
-        return MarchResult(
-            escaped=escaped, travel=travel, esc_o=esc_o, esc_d=esc_d,
-            esc_prim=esc_prim, casts=casts,
-        )
-
     n = pos.shape[0]
 
     rin, ok_in = refract_dir(normal, ray_d, k)
@@ -223,7 +205,7 @@ class Pool:
 
     `pending` is the lane's accumulated-but-undelivered radiance for its
     pixel slot: pooled levels do NOT scatter their shade into the
-    framebuffer (a [K]-row scatter-add per level was ~25% of frame time);
+    framebuffer (that would be one [K]-row scatter-add per level);
     instead the shade rides DOWN the wavefront with exactly one child per
     lane (reflect child by default, refract child when the reflect branch
     is pruned) and the final level delivers everything in ONE scatter.  A
@@ -279,10 +261,9 @@ def _compact(candidates: Pool, k: int, group: int = 8):
     Returns (pool, dropped_count).  Rays beyond capacity are dropped —
     callers surface the count so silent truncation is visible.
 
-    TPU scatters serialize per ROW (~8 ns/row regardless of payload
-    width), so compaction granularity is everything:
+    The scatter is kept to few, wide rows:
       * all 13 ray fields pack into ONE wide payload (int fields ride as
-        raw f32 bits) — per-field scatters were 72% of frame time;
+        raw f32 bits), one scatter instead of one per field;
       * rays compact in GROUPS of `group`: a group is kept iff any member
         is alive and moves as one [13*group]-wide row, cutting scatter
         rows (and time) by `group`x.  Children of adjacent parents are
@@ -324,7 +305,7 @@ def _compact(candidates: Pool, k: int, group: int = 8):
     # silent.  NOTE: with the pending chain, dropping a lane discards
     # radiance ALREADY EARNED at earlier levels (its pending), not just
     # future bounces — dropped > 0 darkens the image, which is why every
-    # user-facing path (render.py, bench.py, tpu_check) surfaces/asserts
+    # user-facing path (render.py, bench.py, chip_smoke.py) surfaces/asserts
     # dropped == 0.  Scattering pending at drop time would reintroduce
     # the per-compaction scatter the chain exists to avoid.
     keep = alive | jnp.any(candidates.pending != 0.0, axis=1)
@@ -356,190 +337,10 @@ def _compact(candidates: Pool, k: int, group: int = 8):
     return pool, dropped
 
 
-def _group(cfg, n: int) -> int:
-    """Compaction group width (config.compact_group; 0 = auto by tile
-    size — coarse groups win on full tiles, overflow sparse small ones)."""
-    return cfg.compact_group or (32 if n >= (1 << 16) else 8)
-
-
 class TraceResult(NamedTuple):
     color: jnp.ndarray  # [N, 3]
     casts: jnp.ndarray  # scalar: total rays cast (incl. shadows + marches)
     dropped: jnp.ndarray  # scalar: rays lost to pool overflow (want 0)
-
-
-# ---------------------------------------------------------------------------
-# Packed fused-kernel trace path
-# ---------------------------------------------------------------------------
-#
-# The fused level kernel (ops/level_pallas.py) consumes and emits the pool
-# as ONE packed [16, K] f32 array (int fields as raw bits).  Keeping that
-# layout END-TO-END — primary packing, kernel, group compaction, next
-# kernel — removes the per-level field pack/unpack glue that cost ~50 ms
-# per frame in round 2 (docs/PERF.md "data formatting"): per level the only
-# XLA ops between kernels are two transposes and the compaction scatter.
-
-
-def _fused_interp(scene, textures):
-    """Availability of the fused kernel path: interpret flag or None."""
-    from raytracer_tpu.ops.intersect import _pallas_choice
-    from raytracer_tpu.ops.kernel_common import kernel_textures_ok
-
-    interp = _pallas_choice()
-    if interp is None:
-        return None
-    if not ((scene.bvh_node_min is None or scene.blk_perm is not None)
-            and scene.n_prim > 0 and kernel_textures_ok(textures)):
-        return None
-    return interp
-
-
-def _pack_primary(ray_o, ray_d):
-    """Primary rays in the packed pool layout (level_pallas docstring)."""
-    n = ray_o.shape[0]
-    f = jnp.concatenate(
-        [
-            ray_o.T, ray_d.T,
-            jnp.ones((2, n), ray_o.dtype),  # c, s
-            jnp.zeros((3, n), ray_o.dtype),  # pending
-        ],
-        axis=0,
-    )
-    ints = jnp.concatenate(
-        [
-            jnp.zeros((1, n), jnp.int32),  # face (FRONT)
-            jnp.full((1, n), NO_EXCLUDE, jnp.int32),
-            jnp.zeros((1, n), jnp.int32),  # excl_face
-            jnp.arange(n, dtype=jnp.int32)[None, :],  # slot
-            jnp.ones((1, n), jnp.int32),  # alive
-        ],
-        axis=0,
-    )
-    return jnp.concatenate(
-        [f, jax.lax.bitcast_convert_type(ints, jnp.float32)], axis=0
-    )
-
-
-def _compact_packed(cands, k: int, group: int = 8):
-    """Group compaction in the packed [16, C] layout -> ([16, k], dropped).
-
-    Same group semantics as _compact (groups kept iff any lane is alive or
-    owes pending radiance; overflow counted, never silent), but the payload
-    is already packed: one transpose, one [group*16]-wide row scatter, one
-    transpose back."""
-    assert k % group == 0, (k, group)
-    c = cands.shape[1]
-    pad = (-c) % group
-    if pad:
-        cands = jnp.pad(cands, [(0, 0), (0, pad)])
-        c += pad
-    alive = jax.lax.bitcast_convert_type(cands[15], jnp.int32) != 0
-    keep = alive | jnp.any(cands[8:11] != 0.0, axis=0)
-    ng_in, ng_out = c // group, k // group
-    gkeepl = keep.reshape(ng_in, group)
-    gkeep = jnp.any(gkeepl, axis=1)
-    gcount = jnp.sum(gkeepl, axis=1, dtype=jnp.int32)
-    order = jnp.cumsum(gkeep.astype(jnp.int32)) - 1
-    dest = jnp.where(gkeep & (order < ng_out), order, ng_out)
-    dropped = jnp.sum(jnp.where(gkeep & (order >= ng_out), gcount, 0))
-    wide = cands.T.reshape(ng_in, group * 16)
-    new = jnp.zeros((ng_out, group * 16), cands.dtype).at[dest].set(
-        wide, mode="drop"
-    ).reshape(k, 16)
-    return new.T, dropped
-
-
-def _slot_of(pool_packed):
-    return jax.lax.bitcast_convert_type(pool_packed[14], jnp.int32)
-
-
-def _trace_whitted_packed(scene, textures, ray_o, ray_d, cfg, interp):
-    """trace_whitted over the fused level kernels, pool packed end-to-end."""
-    from raytracer_tpu.ops import level_pallas
-
-    def level(pp, last, direct):
-        return level_pallas.process_level(
-            scene, textures, pp, last, direct,
-            cfg.threshold, cfg.max_refract_distance, cfg.max_tir_retries,
-            interpret=interp,
-        )
-
-    n = ray_o.shape[0]
-    k = max(128, -(-int(n * cfg.capacity_factor) // 128) * 128)
-    group = _group(cfg, n)
-    casts = jnp.zeros((), jnp.int32)
-    dropped = jnp.zeros((), jnp.int32)
-
-    pp = _pack_primary(ray_o, ray_d)
-    contrib, rch, fch, c0 = level(pp, cfg.depth == 0, True)
-    casts = casts + c0
-    img = contrib.T  # identity slots: the contribution IS the framebuffer
-    if cfg.depth == 0:
-        return TraceResult(color=img, casts=casts, dropped=dropped)
-
-    # Level 1 peel: level 0 emits exactly 2n candidates, which IS a valid
-    # pool — compacting it would be a pure-waste scatter (slots are
-    # arange(n) twice: two plain adds deliver).
-    cands = jnp.concatenate([rch, fch], axis=1)  # [16, 2n]
-    pad = k - 2 * n
-    doubled = pad >= 0
-    if pad > 0:
-        cands = jnp.pad(cands, [(0, 0), (0, pad)])
-    elif pad < 0:
-        cands, drop = _compact_packed(cands, k, group)
-        dropped = dropped + drop
-    last1 = cfg.depth == 1
-    contrib, rch, fch, c1 = level(cands, last1, doubled or last1)
-    casts = casts + c1
-    if doubled:
-        img = img + contrib[:, :n].T + contrib[:, n : 2 * n].T
-    elif last1:
-        img = img.at[_slot_of(cands)].add(contrib.T)
-    if last1:
-        return TraceResult(color=img, casts=casts, dropped=dropped)
-
-    # Deep levels (>= 2): narrower pool (live rays decay to ~0.3-0.6n).
-    k2 = max(
-        128, -(-(int(n * cfg.deep_capacity) + cfg.deep_slack) // 128) * 128
-    )
-    pool2, drop = _compact_packed(
-        jnp.concatenate([rch, fch], axis=1), k2, group
-    )
-    dropped = dropped + drop
-    last2 = cfg.depth == 2
-    contrib, rch, fch, c2 = level(pool2, last2, last2)
-    casts = casts + c2
-    if last2:
-        img = img.at[_slot_of(pool2)].add(contrib.T)
-        return TraceResult(color=img, casts=casts, dropped=dropped)
-
-    # Tail levels (>= 3): narrow once more; fixed slack absorbs zombie
-    # (pending-carrier) pressure.
-    k3 = max(
-        128, -(-(int(n * cfg.tail_capacity) + cfg.tail_slack) // 128) * 128
-    )
-    pool3, drop = _compact_packed(
-        jnp.concatenate([rch, fch], axis=1), k3, group
-    )
-    dropped = dropped + drop
-
-    def level_body(i, state):
-        pool, casts, dropped = state
-        _, rch, fch, ci = level(pool, False, False)
-        pool, drop = _compact_packed(
-            jnp.concatenate([rch, fch], axis=1), k3, group
-        )
-        return pool, casts + ci, dropped + drop
-
-    pool_last, casts, dropped = jax.lax.fori_loop(
-        3, cfg.depth, level_body, (pool3, casts, dropped)
-    )
-    # Final level peeled: emits no children; ONE scatter delivers every
-    # pending chain.
-    contrib, _, _, cl = level(pool_last, True, True)
-    casts = casts + cl
-    img = img.at[_slot_of(pool_last)].add(contrib.T)
-    return TraceResult(color=img, casts=casts, dropped=dropped)
 
 
 def _process_level(scene, textures, cfg, pool: Pool, img, casts, last: bool,
@@ -598,8 +399,8 @@ def _process_level(scene, textures, cfg, pool: Pool, img, casts, last: bool,
     p_new = pool.pending + local
     # One delivery rule for every direct level: pending + local.  On
     # identity/doubled levels pending is invariantly zero (their parents
-    # delivered directly), so this matches the fused kernel path exactly
-    # and stays correct if a pooled pool is ever routed into one.
+    # delivered directly), so this stays correct if a pooled pool is ever
+    # routed into one.
     img = deliver(img, p_new)
 
     # --- reflect child (main.rs:493-500, get_reflect 328-341) ---
@@ -668,18 +469,10 @@ def trace_whitted(
     framebuffer add; bounce levels run at pool width K = capacity_factor*N
     with compaction at level ENTRY, so the final level's dead children are
     never scattered.
-
-    On TPU backends the whole ladder runs over the fused level kernels
-    with the pool packed end-to-end (_trace_whitted_packed); this jnp
-    version is the oracle/fallback path (BVH scenes, host textures).
     """
-    interp = _fused_interp(scene, textures)
-    if interp is not None:
-        return _trace_whitted_packed(scene, textures, ray_o, ray_d, cfg,
-                                     interp)
     n = ray_o.shape[0]
     k = max(128, -(-int(n * cfg.capacity_factor) // 128) * 128)
-    group = _group(cfg, n)
+    group = cfg.compact_group
 
     img = jnp.zeros((n, 3), ray_o.dtype)
     casts = jnp.zeros((), jnp.int32)

@@ -1,6 +1,6 @@
 """Host-side scene construction DSL -> device SoA scene.
 
-TPU-native counterpart of the reference's World::push_object /
+Counterpart of the reference's World::push_object /
 ObjectProxy::push_{triangle,sphere,triangles} builder chain
 (src/main.rs:167-178, 700-728) and the triangle()/square() helpers
 (src/main.rs:730-746).  Building happens in NumPy on the host; build()
@@ -163,9 +163,9 @@ class SceneBuilder:
     def build(self, use_bvh: bool | str = "auto") -> Scene:
         """Flatten to the device Scene.
 
-        use_bvh: True / False / "auto" (BVH only past the triangle count
-        where the dense sweep stops winning on TPU — small scenes like the
-        reference's 64 triangles stay brute-force, SURVEY.md §7.6).
+        use_bvh: True / False / "auto" (BVH from 512 triangles up — small
+        scenes like the reference's 64 triangles stay brute-force,
+        SURVEY.md §7.6).
         """
         f32 = np.float32
         T = len(self._triangles)
@@ -239,16 +239,6 @@ class SceneBuilder:
                 bvh_node_count=jnp.asarray(bvh.node_count),
                 bvh_prim_order=jnp.asarray(bvh.prim_order),
                 bvh_depth=bvh.depth,
-            )
-            from raytracer_tpu.scene.blocked import build_blocked
-
-            # Blocked tables are built at EVERY size: up to
-            # kernel_common.STREAM_BLK_TRIS the permuted table lives in
-            # VMEM; past that the fused kernels stream chunks from HBM
-            # (ChunkTable), so there is no triangle-count ceiling.
-            perm, boxes = build_blocked(tri_v, bvh.prim_order)
-            bvh_fields.update(
-                blk_perm=jnp.asarray(perm), blk_box=jnp.asarray(boxes)
             )
 
         j = jnp.asarray

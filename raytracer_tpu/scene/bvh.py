@@ -1,9 +1,9 @@
 """Host-built BVH over triangles, flattened for device traversal.
 
 The reference brute-forces all primitives per ray (src/main.rs:183-324, 68
-primitives).  This framework's dense [rays x prims] sweep is the right TPU
-answer at that scale — the whole table rides VMEM and every lane does
-useful-enough work.  For large meshes the sweep is O(T) per ray, so scenes
+primitives).  This framework's dense [rays x prims] sweep suits that
+scale — the table is small and every lane does useful-enough work.  For
+large meshes the sweep is O(T) per ray, so scenes
 beyond a few hundred triangles get a BVH: built on host (median split on
 the widest centroid axis), flattened into arrays, traversed on device with
 a masked stack loop (ops/intersect_bvh.py).

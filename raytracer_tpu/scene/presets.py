@@ -365,9 +365,9 @@ def terrain_triangles(grid: int):
 def mesh_scene(grid: int = 24) -> Tuple[Scene, tuple, Camera]:
     """Large-mesh preset: 2*grid^2-triangle terrain + mirror/glass spheres
     + a glass cube (dielectric TRIANGLES, so the interior march runs
-    against the blocked table too).  grid=24 -> 1,164 tris (test size);
-    grid=75 -> 11,262 tris (the >=10k-triangle TPU bench).  Forces the
-    BVH/blocked build regardless of the auto threshold."""
+    through the BVH too).  grid=24 -> 1,164 tris (test size);
+    grid=75 -> 11,262 tris (the bench's >=10k-triangle cells).  Forces the
+    BVH build regardless of the auto threshold."""
     b = SceneBuilder()
     b.push_object(
         MaterialSpec(diffuse_color=(0.55, 0.65, 0.45), shiness=0.25,
@@ -382,7 +382,7 @@ def mesh_scene(grid: int = 24) -> Tuple[Scene, tuple, Camera]:
                      refraction_index=1.25, opaque_decay=0.6,
                      specular_color=WHITE, smoothness=0.5)
     ).push_sphere((0.9, 1.1, -0.7), 0.45)
-    # glass cube: 12 dielectric triangles in the blocked table
+    # glass cube: 12 dielectric triangles in the BVH
     glass = b.push_object(
         MaterialSpec(diffuse_color=WHITE, transparency=1.0,
                      refraction_index=1.5, opaque_decay=0.25,

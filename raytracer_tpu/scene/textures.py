@@ -1,7 +1,7 @@
 """Procedural texture registry.
 
 The reference's GenerativeMaterial holds Rust closures diffuse_fn/normal_fn
-evaluated per hit (src/materials.rs:69-103).  TPU-natively a texture is a
+evaluated per hit (src/materials.rs:69-103).  Here a texture is a
 pair of pure batched functions uv[N,2] -> rgb[N,3] / normal[N,3]; materials
 carry an integer texture id and evaluation is a branchless select over the
 (small, static) texture set, so the whole material system stays vectorized.
@@ -23,12 +23,6 @@ class Texture:
     name: str
     diffuse: Callable[[jnp.ndarray], jnp.ndarray]  # uv [N,2] -> rgb [N,3]
     normal: Callable[[jnp.ndarray], jnp.ndarray]  # uv [N,2] -> tangent n [N,3]
-    # Row-layout variants usable INSIDE Pallas kernels: (u, v) -> tuple of
-    # [1, R] rows ((r, g, b) / (nx, ny, nz)) built from Mosaic-lowerable ops
-    # only (no acos/atan2/gather).  None disables the fused kernels for
-    # scenes using this texture (they fall back to the jnp path).
-    diffuse_rows: Callable | None = None
-    normal_rows: Callable | None = None
 
 
 def _const_normal(uv):
@@ -68,50 +62,12 @@ def checker_diffuse(uv):
     return jnp.where(band[:, None], red, blue)
 
 
-def _parity_even(x):
-    """`(x as i32) % 2 == 0` on [1, R] rows: truncate toward zero (XLA
-    f32->i32 convert semantics match Rust `as i32`), then test the low bit
-    — parity is identical under Rust's sign-preserving % and floor-mod
-    (see tests/test_shade.py::test_texture_mod2_negative_uv_matches_rust)."""
-    return (x.astype(jnp.int32) & 1) == 0
-
-
-def stripes_diffuse_rows(u, v):
-    band = _parity_even(v * 20.0)
-    r = jnp.where(band, 1.0, 0.5)
-    g = jnp.where(band, 1.0, 0.5)
-    b = jnp.ones_like(u)
-    return r, g, b
-
-
-def stripes_normal_rows(u, v):
-    angle = u * 10.0 * 2.0 * np.pi
-    sx, cz = jnp.sin(angle), jnp.cos(angle)
-    flip = jnp.where(cz <= 0.0, -1.0, 1.0)
-    return sx * flip, jnp.zeros_like(u), cz * flip
-
-
-def checker_diffuse_rows(u, v):
-    band = _parity_even((u + v) * 10.0)
-    r = jnp.where(band, 1.0, 0.1)
-    g = jnp.full_like(u, 0.1)
-    b = jnp.where(band, 0.1, 1.0)
-    return r, g, b
-
-
-def _const_normal_rows(u, v):
-    z = jnp.zeros_like(u)
-    return z, z, jnp.ones_like(u)
-
-
 # The default texture set used by the demo scenes.  Index 0 is the constant
 # placeholder (its functions are never selected — material tables win).
 DEFAULT_TEXTURES: Tuple[Texture, ...] = (
     Texture("const", diffuse=lambda uv: jnp.zeros((uv.shape[0], 3), jnp.float32), normal=_const_normal),
-    Texture("stripes", diffuse=stripes_diffuse, normal=stripes_normal,
-            diffuse_rows=stripes_diffuse_rows, normal_rows=stripes_normal_rows),
-    Texture("checker", diffuse=checker_diffuse, normal=_const_normal,
-            diffuse_rows=checker_diffuse_rows, normal_rows=_const_normal_rows),
+    Texture("stripes", diffuse=stripes_diffuse, normal=stripes_normal),
+    Texture("checker", diffuse=checker_diffuse, normal=_const_normal),
 )
 
 TEXTURE_CONST = 0

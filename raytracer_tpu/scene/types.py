@@ -1,7 +1,7 @@
 """SoA scene representation — the device-side scene pytree.
 
 The reference keeps a heap of per-primitive structs behind Arc<Material>
-trait objects (src/primitives.rs, src/main.rs:130-137).  On TPU the whole
+trait objects (src/primitives.rs, src/main.rs:130-137).  Here the whole
 scene is a pytree of flat arrays: triangles, spheres, a material table
 indexed by object id, and a light table.  Geometry-derived quantities used
 by the intersector (face normals, plane offsets, edge-test vectors) are
@@ -97,11 +97,6 @@ class Scene:
     bvh_node_count: jnp.ndarray | None = None  # [M]
     bvh_prim_order: jnp.ndarray | None = None  # [T]
     bvh_depth: int = 0
-
-    # Blocked triangle layout for the fused Pallas kernels on large meshes
-    # (scene/blocked.py): BVH leaf order chunked with per-chunk AABBs.
-    blk_perm: jnp.ndarray | None = None  # [T_pad] i32 (-1 = pad row)
-    blk_box: jnp.ndarray | None = None  # [NCH, 8] chunk AABB min/max
 
     @property
     def n_tri(self) -> int:

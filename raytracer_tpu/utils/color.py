@@ -1,6 +1,6 @@
 """Color-space substrate: linear sRGB working space -> display sRGB.
 
-TPU-native equivalent of the reference's use of the `palette` crate
+Equivalent of the reference's use of the `palette` crate
 (reference: src/image.rs:50-88 conversion, src/consts.rs named colors).
 All colors are [..., 3] float32 arrays in *linear* sRGB, exactly like the
 reference's LinSrgb working space.

@@ -1,7 +1,7 @@
 """ctypes bindings for the C++ host runtime (native/libraytpu_host.so).
 
-The reference is a fully native (Rust) binary; in this framework the TPU
-compute path is JAX/Pallas, and the host-side runtime around it — sRGB
+The reference is a fully native (Rust) binary; in this framework the device
+compute path is JAX/XLA, and the host-side runtime around it — sRGB
 encoding, PNG export, percentile statistics — is C++ (native/src/host.cpp),
 bound here via ctypes.  Every entry point has a pure-Python fallback so the
 framework works before/without building the library.

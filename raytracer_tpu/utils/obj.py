@@ -1,6 +1,6 @@
 """Minimal Wavefront OBJ loader.
 
-TPU-native replacement for the reference's tobj usage (src/main.rs:778-807):
+Replacement for the reference's tobj usage (src/main.rs:778-807):
 the reference takes model 0, triangulates, *ignores* any vn/vt records, and
 rebuilds flat normals from winding with uv=(0,0).  This loader reproduces
 that behavior; the bake transform p/3 + (0.7, 1.0, -0.5) applied in the demo

@@ -1,6 +1,6 @@
 """Crash-safe PNG output.
 
-TPU-native equivalent of the reference's PNG export (src/main.rs:764-776):
+Equivalent of the reference's PNG export (src/main.rs:764-776):
 encode RGB8, write to a temp file next to the target, then atomically rename
 so a killed progressive render always leaves a valid image on disk.
 

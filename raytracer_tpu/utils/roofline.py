@@ -1,50 +1,43 @@
-"""Roofline model: attainable casts/s for the sweep kernels on one v5e.
+"""Roofline model: attainable casts/s of the dense sweep on one device.
 
 The reference's only perf surface is a bare rays/s counter
-(/root/reference/src/main.rs:1111); this module gives that number a
-denominator, answering "how far from the chip's ceiling is the measured
-rate?" (VERDICT r3 missing #3).  bench.py emits the resulting
-`roofline_frac`; docs/PERF.md carries the full derivation and the
-measured-vs-attainable discussion.
+(src/main.rs:1111); this module gives that number a denominator — how far
+the measured cast rate is from what the device's arithmetic peak allows
+for the scene's table size.  bench.py reports the resulting
+`roofline_frac`.
 
-Hardware constants (TPU v5e / "v5 lite", one chip)
---------------------------------------------------
-* Published peak: 197 TFLOP/s bf16 (matmul).  With one TensorCore and
-  four 128x128 MXUs that pins the clock: 197e12 / (2 * 128*128 * 4)
-  = 1.50 GHz.
-* VPU: 8x128 vector lanes, 4 independent ALUs per lane slot
-  => 1024 * 4 * 1.5e9 = 6.1e12 f32 elementwise ops/s.  This is the
-  ceiling that matters here: the sweeps are elementwise compare/FMA
-  over [prims, lanes] tiles (the one MXU use, winner-attribute
-  reconstruction, is ~5% of kernel time).  An FMA counts as ONE op in
-  the model (it issues as one VPU instruction), so the model is
-  conservative in FLOP terms.
-* HBM: 819 GB/s.  The dense path streams nothing per cast (tables are
-  VMEM-resident; ray state lives in registers), so it is compute-bound
-  by construction; HBM enters only through the blocked path's chunk
-  streaming (64 KB per entered chunk past STREAM_BLK_TRIS).
+Peaks are kept in one table keyed by `jax.devices()[0].device_kind`, with
+their source.  A device missing from the table is an error, never a
+default: a fraction against the wrong peak is worse than none.
 
-Op-count model (audited against ops/kernel_common.py)
------------------------------------------------------
-full_sweep, per (triangle row, ray lane):
-    plane:  no_d dot (5) + t = (dpl - fn.o)/no_d (7) + backface/cull/
-            exclusion predicates (~5)
-    edges:  3 x (og dot 5 + dg dot 5 + fma 1 + cmp 1 + and 1) = 39
-    keep:   isfinite + where + min/eq/max winner logic amortized (~6)
-    => ~62 ops per triangle-lane
-per (sphere row, ray lane): cross + dot + disc + select (~30)
-winner attrs: one-hot build + bary interpolation ~4 ops x prims + MXU.
+Op-count model (audited against ops/intersect.py `_tri_candidates`,
+`_sph_candidates` and the winner reduction in `cast`)
+-----------------------------------------------------------------------
+An FMA counts as ONE op (it issues as one instruction), so the peak below
+is lane-ops/s: the data sheet's FLOP/s (which counts an FMA as two) halved.
 
-A "cast" in the honest counters (primary / shadow / bounce / interior
-march iteration) sweeps the whole table once, so
+per (triangle, ray lane):
+    plane:  no_d = d.fn (3) + backface/cull (5) + exclusion (5)
+            + o.fn (3) + t = (d_pl - o.fn) / no_d (2)
+    edges:  3 x (o.g 3 + d.g 3 + h add 1 + t fma 1 + cmp 1 + and 1) = 30
+    keep:   t > 0, isfinite, validity ands, select, min (~11)
+    => ~59, rounded up to 62 for the integer compare/select overheads
+per (sphere, ray lane): cross (6) + dist2 (3) + tc (3) + sqrt term (2)
+    + face selects (5) + exclusion (5) + validity/select/min (~10) => ~34
+winner, per (primitive, ray lane): equality, select, max => 3
+(the winner's attributes are then gathered once per ray, O(1) in P).
 
-    attainable casts/s = VPU_OPS / ops_per_cast(T, S).
+A "cast" in the counters (primary / shadow / bounce / interior march
+iteration) sweeps the whole table once, so
 
-Everything else a real walk does per cast — lobe sampling (acos/pow
-polynomials), direct shading, state carries, dead masked lanes, the
-final scatter — is real work the model deliberately EXCLUDES, so the
-attainable number is a true ceiling and `roofline_frac` honestly
-charges those overheads against the kernel.
+    attainable casts/s = lane_ops_per_s / ops_per_cast(T, S).
+
+Everything else a walk does per cast — lobe sampling, shading, state
+carries, masked dead lanes, compaction — is work the model EXCLUDES, so
+the attainable number is a ceiling and `roofline_frac` charges those
+overheads against the sweep.  The dense sweep keeps its tables in cache
+and is compute-bound by construction; the HBM rate is kept for bytes-bound
+stages.
 """
 
 from __future__ import annotations
@@ -52,49 +45,51 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 OPS_PER_TRI_LANE = 62.0
-OPS_PER_SPH_LANE = 30.0
-OPS_WINNER_PER_PRIM_LANE = 4.0
+OPS_PER_SPH_LANE = 34.0
+OPS_WINNER_PER_PRIM_LANE = 3.0
 
 
 @dataclass(frozen=True)
-class Chip:
-    name: str
-    clock_hz: float
-    vpu_ops: float  # f32 elementwise ops/s (FMA = 1)
-    mxu_flops_bf16: float
-    hbm_bytes: float
+class Peaks:
+    device_kind: str
+    lane_ops_per_s: float  # f32 non-tensor-core ops/s, FMA = 1
+    hbm_bytes_per_s: float
+    source: str
 
 
-V5E = Chip(
-    name="TPU v5e",
-    clock_hz=1.5e9,
-    vpu_ops=1024 * 4 * 1.5e9,  # 6.1e12
-    mxu_flops_bf16=197e12,
-    hbm_bytes=819e9,
+_H100_SXM_SOURCE = (
+    "NVIDIA H100 Tensor Core GPU data sheet, SXM5 column, at the 700 W "
+    "limit: 67 TFLOP/s FP32 (non-tensor; FMA = 2 FLOP), 3.35 TB/s HBM3"
 )
+
+PEAKS = {
+    p.device_kind: p
+    for p in (
+        Peaks("NVIDIA H100 80GB HBM3", 67e12 / 2, 3.35e12, _H100_SXM_SOURCE),
+    )
+}
+
+
+def peaks_for(device_kind: str) -> Peaks:
+    """The published peaks of `device_kind`; KeyError if not tabled."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            f"to utils/roofline.py PEAKS with its source (known: "
+            f"{sorted(PEAKS)})"
+        ) from None
 
 
 def dense_cast_ops(n_tri: int, n_sph: int) -> float:
-    """Model VPU ops per cast for the dense full_sweep table."""
+    """Model lane-ops per cast for the dense sweep."""
     return (
         n_tri * (OPS_PER_TRI_LANE + OPS_WINNER_PER_PRIM_LANE)
         + n_sph * (OPS_PER_SPH_LANE + OPS_WINNER_PER_PRIM_LANE)
     )
 
 
-def dense_attainable_casts(n_tri: int, n_sph: int,
-                           chip: Chip = V5E) -> float:
-    """Attainable casts/s if the chip did nothing but sweep arithmetic."""
-    return chip.vpu_ops / dense_cast_ops(n_tri, n_sph)
-
-
-def blocked_chunk_body_seconds(lanes: int, chunk_rows: int = 128,
-                               chip: Chip = V5E) -> float:
-    """Model cost of ONE entered chunk body over `lanes` ray lanes."""
-    return chunk_rows * lanes * OPS_PER_TRI_LANE / chip.vpu_ops
-
-
-def blocked_stream_seconds(chip: Chip = V5E, chunk_rows: int = 128,
-                           cols_pad: int = 128) -> float:
-    """HBM bandwidth cost of streaming one chunk (latency excluded)."""
-    return chunk_rows * cols_pad * 4 / chip.hbm_bytes
+def dense_attainable_casts(n_tri: int, n_sph: int, peaks: Peaks) -> float:
+    """Attainable casts/s if the device did nothing but sweep arithmetic."""
+    return peaks.lane_ops_per_s / dense_cast_ops(n_tri, n_sph)

@@ -1,6 +1,6 @@
 """Batched 3-vector math on trailing-dim-3 arrays.
 
-TPU-native substrate for the reference's cgmath usage (reference:
+Substrate for the reference's cgmath usage (reference:
 src/geometric.rs, src/main.rs).  Everything here operates on arrays of shape
 [..., 3] so the whole renderer stays SoA / vectorized — there is no scalar
 Vec3 type anywhere in the framework.

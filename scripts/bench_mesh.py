@@ -1,6 +1,6 @@
 """Focused large-mesh benchmark: whitted frame + MC epoch on the 11k- and
-51k-triangle terrains (the VERDICT r3 perf frontier), without the demo-scene
-portions of bench.py.  Prints one JSON line.
+51k-triangle terrains (the BVH path), without the demo-scene portions of
+bench.py.  Runs only on a GPU.  Prints one JSON line.
 
     python scripts/bench_mesh.py [--grids 75,160] [--reps 3]
 """
@@ -32,14 +32,16 @@ def main() -> int:
     from raytracer_tpu.config import RenderConfig
     from raytracer_tpu.render import render_distributed_epoch, render_whitted
     from raytracer_tpu.scene.presets import mesh_scene
-    from raytracer_tpu.utils.device import wait_for_device
+    from raytracer_tpu.utils.gpu import card_info, require_gpu
 
-    wait_for_device()
-    print(f"devices: {jax.devices()}", flush=True)
+    dev = require_gpu()
+    card = card_info()
+    print(f"devices: {jax.devices()} card: {card}", flush=True)
     cfg = RenderConfig(width=args.size, height=args.size, depth=args.depth,
                        tile_rays=1 << 16)
     key = jax.random.PRNGKey(7)
-    out = {}
+    out = {"platform": dev["platform"], "device_kind": dev["kind"],
+           "device_count": dev["count"], "card": card}
     for grid in (int(g) for g in args.grids.split(",")):
         scene, tex, cam = mesh_scene(grid=grid)
         tag = f"mesh{scene.n_tri // 1000}k"

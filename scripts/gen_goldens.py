@@ -5,8 +5,7 @@ structure (src/main.rs:466-519) and is far too slow to run at useful
 resolutions inside the test suite (~minutes per 64x48 depth-5 frame), so
 this script renders each preset ONCE with multiprocessing and commits the
 result under tests/golden/.  tests/test_presets_golden.py then pins the
-renderer (jnp and kernel paths) against these files at full depth 5 —
-the fidelity evidence VERDICT.md round 1 asked for.
+renderer against these files at full depth 5.
 
 Rerun after any intentional semantic change:
     python scripts/gen_goldens.py
@@ -33,7 +32,11 @@ _CAM = None
 
 def _init(preset_name: str):
     global _WORLD, _CAM
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    # Every worker builds its scene tables with JAX; pin them to the CPU so
+    # a pool on a GPU machine never opens the card once per worker.
+    jax.config.update("jax_platforms", "cpu")
     from oracle import OracleWorld
 
     from raytracer_tpu.scene import presets
@@ -76,7 +79,9 @@ def main() -> int:
     for name in names:
         path = os.path.join(outdir, f"oracle_{name}_{W}x{H}_d{DEPTH}.npy")
         t0 = time.time()
-        with mp.Pool(os.cpu_count(), initializer=_init, initargs=(name,)) as p:
+        ctx = mp.get_context("spawn")
+        with ctx.Pool(os.cpu_count(), initializer=_init,
+                      initargs=(name,)) as p:
             rows = p.map(_render_row, range(H))
         img = np.stack(rows).astype(np.float32)
         np.save(path, img)

@@ -2,7 +2,7 @@
 
 An independent, readable, per-ray recursive implementation of the algorithm
 in /root/reference/src/main.rs (cast 180-326, reflect 328-341, refract
-343-405, shade 407-464, ray_trace 466-519).  The TPU wavefront renderer is
+343-405, shade 407-464, ray_trace 466-519).  The wavefront renderer is
 validated against this oracle on tiny images; the oracle itself is written
 scalar-style so its structure matches the reference prose, not the
 framework's (catching vectorization bugs rather than sharing them).

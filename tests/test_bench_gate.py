@@ -1,5 +1,5 @@
-"""Units for round-5 harness machinery: the bench regression gate and the
-auto compaction-group selection."""
+"""Units for harness machinery: the bench regression gate and the
+compaction group width."""
 
 import importlib.util
 import json
@@ -19,7 +19,7 @@ def _bench():
 
 def test_prior_round_deltas_flags_direction_aware(tmp_path, monkeypatch):
     """Seconds metrics flag when they grow, rate metrics when they shrink;
-    <=10% drifts pass silently (VERDICT r4 item 8)."""
+    <=10% drifts pass silently."""
     m = _bench()
     prev = {"parsed": {"mesh51k_mc_epoch_seconds": 1.0, "value": 100.0,
                        "roofline_frac": 0.10, "whitted_mc_step_mrays_per_sec": 90.0}}
@@ -44,13 +44,33 @@ def test_prior_round_deltas_absent_file(tmp_path, monkeypatch):
     assert m._prior_round_deltas({"value": 1.0}) == {}
 
 
-def test_auto_compact_group_by_tile_size():
-    """32-wide groups overflow sparse small frames (measured: 260 dropped
-    at 64x48 before the auto split); full bench tiles take 32."""
-    from raytracer_tpu.config import RenderConfig
-    from raytracer_tpu.ops.trace import _group
+def test_prior_round_deltas_other_device_kind(tmp_path, monkeypatch):
+    """A prior run on another device is never read as a regression."""
+    m = _bench()
+    f = tmp_path / "BENCH_r7.json"
+    f.write_text(json.dumps({"device_kind": "NVIDIA A100-SXM4-80GB", "value": 146.0}))
+    monkeypatch.setattr(m.os.path, "dirname", lambda p: str(tmp_path))
+    out = m._prior_round_deltas({"device_kind": "NVIDIA H100 80GB HBM3",
+                                 "value": 1.0})
+    assert out == {"prev_round_file": "BENCH_r7.json",
+                   "prev_round_skipped": "other device_kind"}
 
-    cfg = RenderConfig()
-    assert _group(cfg, 64 * 48) == 8
-    assert _group(cfg, 1 << 16) == 32
-    assert _group(RenderConfig(compact_group=16), 64 * 48) == 16
+
+def test_auto_compact_group_by_tile_size():
+    """One compaction group width for every tile size: 32-wide groups
+    overflow the pools of sparse small frames and of glass-heavy full
+    tiles alike, while 8 keeps every ray."""
+    import dataclasses
+
+    from raytracer_tpu.config import RenderConfig
+    from raytracer_tpu.render import render_whitted
+    from raytracer_tpu.scene.presets import demo_camera, demo_scene
+
+    assert RenderConfig().compact_group == 8
+    scene, textures = demo_scene()
+    cfg = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
+    _, wide = render_whitted(scene, textures, demo_camera(),
+                             dataclasses.replace(cfg, compact_group=32))
+    _, default = render_whitted(scene, textures, demo_camera(), cfg)
+    assert wide["dropped"] > 0
+    assert default["dropped"] == 0

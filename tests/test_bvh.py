@@ -113,3 +113,53 @@ def test_bvh_whitted_render_matches_dense():
     img_b, _ = render_whitted(accel, DEFAULT_TEXTURES, cam, cfg)
     np.testing.assert_allclose(np.asarray(img_b), np.asarray(img_a),
                                atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("mode", ["full", "geom", "any_hit"])
+def test_bvh_matches_dense_by_mode(mode):
+    """The BVH path (every scene of >= 512 triangles) against the dense
+    sweep, for both attribute sets of `cast` and for the shadow any-hit
+    predicate with a distance limit."""
+    from raytracer_tpu.ops.intersect import cast_any_hit
+
+    b = _random_mesh_builder(600, seed=7)
+    dense = b.build(use_bvh=False)
+    accel = b.build(use_bvh=True)
+    rng = np.random.default_rng(2)
+    n = 256
+    o = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
+    d = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = Rays(
+        o=jnp.asarray(o), d=jnp.asarray(d),
+        face=jnp.asarray(rng.integers(0, 3, n), jnp.int32),
+        excl_prim=jnp.asarray(rng.integers(-1, dense.n_prim, n), jnp.int32),
+        excl_face=jnp.asarray(rng.integers(0, 3, n), jnp.int32),
+    )
+    if mode == "any_hit":
+        limit = jnp.asarray(rng.uniform(0.2, 6.0, n), jnp.float32)
+        fn = jax.jit(lambda s, r: cast_any_hit(s, r, limit=limit))
+        a, b_ = np.asarray(fn(dense, rays)), np.asarray(fn(accel, rays))
+        assert a.any() and not a.all()
+        assert (a != b_).sum() <= 2
+        return
+
+    fn = jax.jit(lambda s, r: cast(s, r, attrs=mode))
+    hd, hb = fn(dense, rays), fn(accel, rays)
+    va, vb = np.asarray(hd.valid), np.asarray(hb.valid)
+    assert va.sum() > 50
+    assert (va != vb).sum() <= 2
+    both = va & vb
+    same = np.asarray(hd.prim)[both] == np.asarray(hb.prim)[both]
+    assert same.mean() > 0.99
+    np.testing.assert_allclose(np.asarray(hb.t)[both], np.asarray(hd.t)[both],
+                               rtol=1e-5, atol=1e-5)
+    for k in ("pos", "normal"):
+        np.testing.assert_allclose(np.asarray(getattr(hb, k))[both][same],
+                                   np.asarray(getattr(hd, k))[both][same],
+                                   atol=1e-4)
+    if mode == "full":
+        np.testing.assert_allclose(np.asarray(hb.uv)[both][same],
+                                   np.asarray(hd.uv)[both][same], atol=1e-4)
+        np.testing.assert_array_equal(np.asarray(hb.obj)[both],
+                                      np.asarray(hd.obj)[both])

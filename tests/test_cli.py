@@ -17,7 +17,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _run(args, cwd):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["RAYTPU_FORCE_CPU"] = "1"
     return subprocess.run(
         [sys.executable, "-m", "raytracer_tpu", *args],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
@@ -57,11 +56,11 @@ def test_cli_epochs_and_checkpoint(tmp_path):
 def test_cli_retries_resumes_after_transient_failure(tmp_path):
     """--retries: the supervisor relaunches a render whose process dies
     mid-schedule (injected after the whitted pass checkpointed, like a
-    remote tunnel dropping) and the retry resumes from the checkpoint and
+    device fault) and the retry resumes from the checkpoint and
     completes the schedule."""
     out = str(tmp_path / "sup.png")
     tok = str(tmp_path / "fail.token")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", RAYTPU_FORCE_CPU="1",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                RAYTPU_TEST_FAIL_TOKEN=tok, RAYTPU_RETRY_DELAY="0")
     r = subprocess.run(
         [sys.executable, "-m", "raytracer_tpu", "--scene", "01-spheres",
@@ -86,7 +85,7 @@ def test_cli_retries_aborts_on_deterministic_failure(tmp_path):
     declared deterministic after TWO no-progress failures and abort —
     not burn all N relaunches (each costing a 30 s default delay)."""
     out = str(tmp_path / "det.png")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", RAYTPU_FORCE_CPU="1",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                RAYTPU_TEST_FAIL_ALWAYS="1", RAYTPU_RETRY_DELAY="0")
     r = subprocess.run(
         [sys.executable, "-m", "raytracer_tpu", "--scene", "01-spheres",
@@ -111,3 +110,22 @@ def test_cli_warm_cache(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "warm-cache: programs compiled+cached" in r.stdout
     assert not os.path.exists(out)
+
+
+def test_cli_supervisor_opens_no_device(tmp_path):
+    """The --retries parent spawns the render child without initialising
+    any JAX backend itself, so only the child holds the card."""
+    code = (
+        "import subprocess, sys\n"
+        "from jax._src import xla_bridge\n"
+        "from raytracer_tpu import cli\n"
+        "subprocess.call = lambda *a, **k: 0\n"
+        f"rc = cli.main(['--epochs', '1', '--out', {str(tmp_path / 'x.png')!r},"
+        " '--retries', '1'])\n"
+        "print('rc', rc, 'backends', xla_bridge.backends_are_initialized())\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "rc 0 backends False" in r.stdout, r.stdout

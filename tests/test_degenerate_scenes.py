@@ -6,13 +6,14 @@ import numpy as np
 import pytest
 
 from raytracer_tpu.config import RenderConfig
-from raytracer_tpu.ops import intersect
 from raytracer_tpu.ops.intersect import cast, cast_any_hit
 from raytracer_tpu.render import render_whitted
 from raytracer_tpu.scene.builder import MaterialSpec, SceneBuilder, square
 from raytracer_tpu.scene.presets import demo_camera
 from raytracer_tpu.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu.scene.types import Rays
+
+from tests.oracle import OracleWorld
 
 
 def _sphere_only():
@@ -42,21 +43,16 @@ def _empty():
     return b.build()
 
 
-@pytest.mark.parametrize("mode", ["0", "interpret"])
 @pytest.mark.parametrize("maker", [_sphere_only, _tri_only, _empty],
                          ids=["spheres", "tris", "empty"])
-def test_cast_degenerate(maker, mode):
+def test_cast_degenerate(maker):
     scene = maker()
     rays = Rays.primary(
         jnp.asarray([[0.0, 3.0, 0.0]] * 4, jnp.float32),
         jnp.asarray([[0.0, -1.0, 0.0]] * 4, jnp.float32),
     )
-    intersect.set_pallas_mode(mode)
-    try:
-        h = cast(scene, rays)
-        blocked = cast_any_hit(scene, rays)
-    finally:
-        intersect.set_pallas_mode("auto")
+    h = cast(scene, rays)
+    blocked = cast_any_hit(scene, rays)
     if scene.n_prim == 0:
         assert not bool(h.valid.any()) and not bool(blocked.any())
     else:
@@ -104,26 +100,17 @@ def _glass_tris_only():
 @pytest.mark.parametrize("maker", [_glass_sphere_only, _glass_tris_only],
                          ids=["glass-sphere", "glass-tris"])
 def test_march_degenerate_glass(maker):
-    """The interior march handles sphere-only and triangle-only dielectrics
-    identically in the XLA and Pallas paths.
-
-    Both modes render inside ONE test so the comparison cannot depend on
-    xdist scheduling (VERDICT r4: passing the golden between parametrized
-    variants via a function attribute broke — and silently skipped — when
-    the variants landed on different workers)."""
+    """The interior march handles sphere-only and triangle-only dielectrics:
+    the render matches the scalar oracle (tests/oracle.py), whose
+    get_refract walks the same TIR retries one ray at a time in f64."""
     scene = maker()
     cfg = RenderConfig(width=10, height=8, depth=3, tile_rays=80)
     cam = demo_camera()
-    imgs = {}
-    for mode in ("0", "interpret"):
-        intersect.set_pallas_mode(mode)
-        try:
-            img, stats = render_whitted(scene, DEFAULT_TEXTURES, cam, cfg)
-        finally:
-            intersect.set_pallas_mode("auto")
-        img = np.asarray(img)
-        assert np.isfinite(img).all()
-        assert stats["dropped"] == 0
-        imgs[mode] = img
-    np.testing.assert_allclose(imgs["interpret"], imgs["0"],
-                               atol=2e-4, rtol=1e-3)
+    img, stats = render_whitted(scene, DEFAULT_TEXTURES, cam, cfg)
+    img = np.asarray(img)
+    assert np.isfinite(img).all()
+    assert stats["dropped"] == 0
+    ref = OracleWorld(scene, DEFAULT_TEXTURES).render_whitted(
+        cam, cfg.width, cfg.height, depth=cfg.depth
+    )
+    np.testing.assert_allclose(img, ref, atol=2e-4, rtol=1e-3)

@@ -166,15 +166,13 @@ def test_mc_epoch_sharded_matches_serial_same_keys():
 
 
 def test_blocked_mesh_sharded_matches_single_device():
-    """dp>1 AND sp>1 over a BLOCKED (large-mesh) scene: shard_map, the
-    block-order clip tiling (parallel/mesh.sharded_clips), and the
-    chunk-gated blocked kernels execute together, with parity vs the
-    single-device blocked render (VERDICT r3 missing #1 — the sharded
-    layer previously only ever ran dense toy scenes)."""
+    """dp>1 AND sp>1 over a large-mesh scene: shard_map, the block-order
+    clip tiling (parallel/mesh.sharded_clips), and the BVH traversal
+    execute together, with parity vs the single-device render."""
     from raytracer_tpu.scene.presets import mesh_scene
 
     scene, textures, camera = mesh_scene(grid=24)
-    assert scene.blk_perm is not None  # really the blocked path
+    assert scene.bvh_node_min is not None  # really the BVH path
     cfg = RenderConfig(width=32, height=16, depth=2, tile_rays=512)
     img_1, stats_1 = render_whitted(scene, textures, camera, cfg)
     mesh = make_render_mesh(8)  # dp=4, sp=2: both axes exercised
@@ -188,13 +186,12 @@ def test_blocked_mesh_sharded_matches_single_device():
 
 
 def test_blocked_mesh_mc_epoch_sharded_runs():
-    """Sharded MC epoch on a blocked scene routes through the binned
-    per-bounce kernels (>= BINNED_MIN_TRIS forces it only at bench scale;
-    here the mega-kernel blocked path) with block-order clips, and is
+    """Sharded MC epoch on a BVH mesh scene with block-order clips is
     deterministic under the same key."""
     from raytracer_tpu.scene.presets import mesh_scene
 
     scene, textures, camera = mesh_scene(grid=24)
+    assert scene.bvh_node_min is not None
     cfg = RenderConfig(width=32, height=16, depth=2, tile_rays=512)
     mesh = make_render_mesh(8)
     key = jax.random.PRNGKey(11)
@@ -210,33 +207,25 @@ def test_blocked_mesh_mc_epoch_sharded_runs():
     assert stats["samples_per_pixel"] == 2
 
 
-def test_blocked_mesh_mc_sharded_binned_parity(monkeypatch):
-    """shard_map x the BINNED per-bounce MC kernels execute together with
-    parity (VERDICT r4 item 6: this combination had never executed on any
-    backend — the r4 blocked sharded cases sat below BINNED_MIN_TRIS and
-    always took the mega-kernel).  The threshold is lowered so the 1.1k-tri
-    blocked scene routes through mc_binned.trace inside the sharded epoch;
-    parity is vs a serial single-device recomputation with the same
-    per-(dp, sp)-rank folded keys.
+def test_blocked_mesh_mc_sharded_binned_parity():
+    """shard_map x the BVH MC walk on the 1.1k-tri terrain, with parity
+    vs a serial single-device recomputation with the same per-(dp,
+    sp)-rank folded keys.
 
     Gate: XLA compiles the in-mesh shoot_focus with different fp
     contraction than the standalone program, so every lane's ray origin
     differs by ulps — photons carry ~1e-6 noise everywhere, and isolated
     walks crossing a discrete boundary (roulette/TIR/grazing-triangle
     tie-breaks; this terrain has coplanar neighbors) are replaced
-    wholesale.  Both tracer routes (mega/binned) produce IDENTICAL
-    images given identical rays (tests/test_mc_binned.py), so the honest
-    sharded-parity gate is the tpu_check MC one: a tiny
-    whole-walk-replacement fraction, tight tolerance elsewhere."""
-    from raytracer_tpu.ops import camera as camera_ops, mc_binned
+    wholesale, so the gate is a tiny whole-walk-replacement fraction and
+    a tight tolerance elsewhere (the same rule chip_smoke.py applies)."""
+    from raytracer_tpu.ops import camera as camera_ops
     from raytracer_tpu.ops.distributed import trace_distributed
     from raytracer_tpu.parallel.mesh import sharded_clips
     from raytracer_tpu.scene.presets import mesh_scene
 
-    monkeypatch.setattr(mc_binned, "BINNED_MIN_TRIS", 64)
     scene, textures, camera = mesh_scene(grid=24)
-    assert scene.blk_perm is not None
-    assert scene.n_tri >= 64  # really the binned path now
+    assert scene.bvh_node_min is not None
     cfg = RenderConfig(width=16, height=8, depth=1, tile_rays=128)
     mesh = make_render_mesh(8)  # dp=4, sp=2
     key = jax.random.PRNGKey(13)
@@ -246,7 +235,7 @@ def test_blocked_mesh_mc_sharded_binned_parity(monkeypatch):
     assert stats["samples_per_pixel"] == 2
 
     # serial reference with the SAME per-rank folded keys AND the same
-    # block-major clip tiling the blocked sharded path uses (per-lane
+    # block-major clip tiling the sharded path uses (per-lane
     # lens offsets are drawn in device-lane order, so the pixel->lane
     # assignment must match exactly)
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
@@ -278,17 +267,14 @@ def test_blocked_mesh_mc_sharded_binned_parity(monkeypatch):
 
 @pytest.mark.heavy
 def test_blocked_mesh_mc_sharded_binned_11k():
-    """The REAL scale tier: an 11k-triangle terrain (>= BINNED_MIN_TRIS
-    without any threshold override) through the sharded MC epoch — the
-    exact shard_map x binned-per-bounce combination the bench runs at
-    1024x1024 on hardware, here on the 8-virtual-device CPU mesh at a
-    small frame, checked deterministic and photon-producing."""
-    from raytracer_tpu.ops import mc_binned
+    """The REAL scale tier: the 11k-triangle terrain of the bench's mesh
+    cells through the sharded MC epoch, here on the 8-virtual-device CPU
+    mesh at a small frame, checked deterministic and photon-producing."""
     from raytracer_tpu.scene.presets import mesh_scene
 
     scene, textures, camera = mesh_scene(grid=75)
-    assert scene.blk_perm is not None
-    assert scene.n_tri >= mc_binned.BINNED_MIN_TRIS
+    assert scene.bvh_node_min is not None
+    assert scene.n_tri > 10_000
     cfg = RenderConfig(width=32, height=16, depth=2, tile_rays=512)
     mesh = make_render_mesh(8)
     key = jax.random.PRNGKey(17)

@@ -145,7 +145,7 @@ def test_png_every_groups_match_per_epoch_schedule(tmp_path):
     a, b = np.asarray(st.img), np.asarray(ref.img)
     # tolerance, not equality: XLA fuses the fori-loop body differently
     # from the standalone epoch program, which can flip a rare roulette
-    # branch on isolated lanes (same caveat as tests/test_mc_binned.py)
+    # branch on isolated lanes
     close = np.all(np.isclose(a, b, rtol=2e-4, atol=1e-6), axis=-1)
     assert close.mean() >= 0.95, f"only {close.mean():.3f} pixels agree"
 
@@ -178,9 +178,9 @@ def test_png_every_with_mesh_matches_per_epoch(tmp_path):
     assert close.mean() >= 0.95, f"only {close.mean():.3f} pixels agree"
 
 
-@pytest.mark.heavy  # exhaustive interpret-mode parity; quick tier keeps a small-shape guard
+@pytest.mark.heavy  # sharded resume round-trip on a mesh scene
 def test_progressive_mesh_blocked_resume_roundtrip(tmp_path):
-    """Sharded progressive driver on a BLOCKED scene: the dp-sharded
+    """Sharded progressive driver on a BVH mesh scene: the dp-sharded
     accumulator lives in 32x16 block-major order (parallel/mesh.
     sharded_clips), so checkpoints/PNGs go through to_image (inv gather)
     and resume goes back through flat[perm_s].  A 2-epoch run + resume to
@@ -192,7 +192,7 @@ def test_progressive_mesh_blocked_resume_roundtrip(tmp_path):
     from raytracer_tpu.scene.presets import mesh_scene
 
     scene, textures, cam = mesh_scene(grid=4)
-    assert scene.blk_perm is not None  # really the blocked path
+    assert scene.bvh_node_min is not None  # really the BVH path
     mesh = make_render_mesh(8)
     cfg4 = RenderConfig(width=32, height=16, depth=2, epochs=4,
                         tile_rays=512)
@@ -215,17 +215,17 @@ def test_progressive_mesh_blocked_resume_roundtrip(tmp_path):
     assert np.isfinite(np.asarray(b.img)).all()
 
 
-@pytest.mark.heavy  # exhaustive interpret-mode parity; quick tier keeps a small-shape guard
+@pytest.mark.heavy  # group vs per-epoch parity on a mesh scene
 def test_png_every_blocked_scene_tile_order(tmp_path):
-    """Blocked scenes tile their clips in 32x16 block order, so the group
-    path's carried accumulator is PERMUTED relative to image order — this
-    pins the image->tiled scatter / tiled->image gather round-trip
-    (`inv is not None` branch of _epoch_group_packed), which the dense
-    spheres/demo tests never touch."""
+    """Frames tile their clips in 32x16 block order, so the group path's
+    carried accumulator is PERMUTED relative to image order — this pins
+    the image->tiled scatter / tiled->image gather round-trip (`inv is
+    not None` branch of _epoch_group_packed) on a frame wider than one
+    block, through the BVH path."""
     from raytracer_tpu.scene.presets import mesh_scene
 
     scene, textures, cam = mesh_scene(grid=4)
-    assert scene.blk_perm is not None  # the point of this test
+    assert scene.bvh_node_min is not None
     cfg = RenderConfig(width=64, height=32, depth=2, epochs=3,
                        tile_rays=1024)
     a = render_progressive(scene, textures, cam, cfg,

@@ -7,7 +7,7 @@ main.rs would show up here.
 
 Two layers:
   * the committed full-schedule artifact (artifacts/out.png, produced by
-    scripts/psnr_vs_reference.py on the TPU) is scored against the golden —
+    scripts/psnr_vs_reference.py) is scored against the golden —
     pure file I/O, pins the recorded PSNR numbers;
   * a small live render (whitted + 4 stochastic epochs) is scored against
     the box-downsampled golden — guards the actual render path in CI.
